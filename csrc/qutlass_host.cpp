@@ -2,15 +2,15 @@
 //
 // The reference implements its host-side layer in C++ (bindings,
 // validation, layout transforms — qutlass/csrc/bindings.cpp,
-// qutlass/utils.py's swizzle).  The TPU rebuild keeps the device path in
-// Pallas/XLA; this library is the native host runtime:
+// qutlass/utils.py's swizzle).  This rebuild keeps the device path in
+// XLA/Pallas; this library is the native host runtime:
 //
 //   * fp64 golden quantizers (the numerics spec, reference
 //     tests/mxfp4_test.py:45-184) at C speed for validating large
 //     tensors and for offline weight preparation,
 //   * scalar codecs for e2m1 / e8m0 / e4m3,
 //   * the cuBLAS 128x4 block-scale swizzle (reference utils.py:160-193)
-//     for exporting TPU-quantized tensors to GPU runtimes.
+//     for exporting quantized tensors to CUTLASS/cuBLAS runtimes.
 //
 // Exposed as a plain C ABI consumed via ctypes
 // (qutlass_tpu/runtime/host_lib.py).  Build: `make -C csrc`.

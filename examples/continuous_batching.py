@@ -1,23 +1,24 @@
 """Continuous batching: a stream of prompts through a fixed slot pool.
 
-The TPU-native analogue of the vLLM serving role the reference
+The in-repo analogue of the vLLM serving role the reference
 delegates (README.md:50): static shapes everywhere, per-row decode
 positions, slot reuse on completion.  Each prompt's greedy output is
 identical to generating it alone.
 
-    python examples/continuous_batching.py        # CPU or TPU
+    python examples/continuous_batching.py   # on JAX's default device
 """
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from qutlass_tpu.profiling import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 import jax
-
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 from qutlass_tpu.models import (ContinuousBatcher, init_params,
@@ -35,7 +36,7 @@ def main():
     cfg = tiny_config()
     params = init_params(cfg, jax.random.PRNGKey(0))
     h = hadamard(32)
-    # int8 weight format (default): every linear runs on the int8 MXU
+    # int8 weight format (default): every linear is an int8 contraction
     qparams = quantize_model_weights(cfg, params, h)
 
     rng = np.random.default_rng(0)

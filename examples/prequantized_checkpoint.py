@@ -1,4 +1,4 @@
-"""Serving a pre-quantized GPU checkpoint on TPU — runs on CPU or TPU.
+"""Serving a pre-quantized checkpoint in the reference's layout.
 
 The reference ecosystem (vLLM PR #24440, FP-Quant; reference
 README.md:50,66,80) persists NVFP4/MXFP4 linears row-major:
@@ -11,12 +11,17 @@ exactly.
     python examples/prequantized_checkpoint.py
 """
 import json
+import os
 import sys
 import tempfile
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from qutlass_tpu.profiling import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 import jax
 import jax.numpy as jnp

@@ -5,25 +5,24 @@ kernels + HF Transformers integration (reference README.md:44-51,
 quartet_test.py flow), end-to-end under ``jax.grad``.
 
 ``grad_mode`` picks the backward arithmetic (qutlass_tpu/nn/linear.py):
-``int8`` is the TPU speed-of-light step (all three GEMMs on the int8
-MXU, 1.14x vs bf16 pseudoquant QAT on v5e), ``mxfp8`` is reference
-parity, ``bf16`` is the exact STE.
+``int8`` runs all three GEMMs as int8 contractions, ``mxfp8`` is
+reference parity, ``bf16`` is the exact STE.
 
-    python examples/qat_training.py        # CPU or TPU
+    python examples/qat_training.py   # on JAX's default device
 """
+import functools
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from qutlass_tpu.profiling import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 import jax
-
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_platforms", "cpu")
-
-import functools
-
 import jax.numpy as jnp
 import optax
 
@@ -31,18 +30,18 @@ from qutlass_tpu.nn import quartet_linear
 from qutlass_tpu.utils import hadamard_matrix
 
 
-def main(grad_mode: str = "int8", steps: int = 40):
-    d_in, d_hidden, d_out, batch = 256, 512, 256, 128
+def mlp_problem(d_in: int, d_hidden: int, d_out: int, grad_mode: str,
+                seed: int = 0):
+    """The 2-layer quartet MLP: (params, teacher, loss_fn), where the
+    loss regresses the MLP onto a fixed random linear teacher."""
     h = hadamard_matrix(32)
-    key = jax.random.PRNGKey(0)
-    k1, k2, k3 = jax.random.split(key, 3)
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
     params = {
         "w1": (jax.random.normal(k1, (d_hidden, d_in)) * 0.05
                ).astype(jnp.bfloat16),
         "w2": (jax.random.normal(k2, (d_out, d_hidden)) * 0.05
                ).astype(jnp.bfloat16),
     }
-    # a fixed random teacher to regress against
     teacher = jax.random.normal(k3, (d_out, d_in)) * 0.1
 
     def model(p, x):
@@ -53,6 +52,14 @@ def main(grad_mode: str = "int8", steps: int = 40):
     def loss_fn(p, x, t):
         return jnp.mean((model(p, x).astype(jnp.float32) - t) ** 2)
 
+    return params, teacher, loss_fn
+
+
+def train(grad_mode: str = "int8", steps: int = 40, d_in: int = 256,
+          d_hidden: int = 512, d_out: int = 256, batch: int = 128,
+          log_every: int = 10):
+    """Train the MLP with optax adam; returns the per-step losses."""
+    params, teacher, loss_fn = mlp_problem(d_in, d_hidden, d_out, grad_mode)
     opt = optax.adam(3e-3)
     opt_state = opt.init(params)
 
@@ -66,20 +73,22 @@ def main(grad_mode: str = "int8", steps: int = 40):
         return p, opt_state, loss
 
     rng = np.random.default_rng(0)
-    first = last = None
+    losses = []
     for i in range(steps):
-        x = jnp.asarray(rng.standard_normal((batch, d_in)),
-                        jnp.bfloat16)
-        t = (x.astype(jnp.float32) @ teacher.T)
+        x = jnp.asarray(rng.standard_normal((batch, d_in)), jnp.bfloat16)
+        t = x.astype(jnp.float32) @ teacher.T
         params, opt_state, loss = train_step(params, opt_state, x, t)
-        if first is None:
-            first = float(loss)
-        last = float(loss)
-        if i % 10 == 0:
-            print(f"step {i:3d}  loss {float(loss):.5f}")
+        losses.append(float(loss))
+        if log_every and i % log_every == 0:
+            print(f"step {i:3d}  loss {losses[-1]:.5f}")
+    return losses
 
-    print(f"grad_mode={grad_mode}: loss {first:.5f} -> {last:.5f}")
-    assert last < first * 0.5, "QAT training failed to reduce the loss"
+
+def main(grad_mode: str = "int8", steps: int = 40):
+    losses = train(grad_mode, steps)
+    print(f"grad_mode={grad_mode}: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    assert losses[-1] < losses[0] * 0.5, \
+        "QAT training failed to reduce the loss"
     print("qat_training OK")
 
 

@@ -1,4 +1,4 @@
-"""qutlass-tpu quickstart — runs on CPU (emulation) or TPU (Pallas).
+"""qutlass-tpu quickstart — runs on the CPU or a GPU.
 
 Covers the full API surface a reference (IST-DASLab/qutlass) user
 needs: quantize + GEMM, the K-major fast path, a quantized linear
@@ -6,11 +6,16 @@ layer, QAT training with jax.grad, and KV-cache generation.
 
     python examples/quickstart.py
 """
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from qutlass_tpu.profiling import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +44,7 @@ wq, ws = q.fusedQuantizeMx(w, h, method="quest")
 y = q.matmul_mxf4_bf16_tn(xq, wq, q.to_blocked(xs), q.to_blocked(ws), one)
 print("mxf4 GEMM:", y.shape, y.dtype)
 
-# --- 2. TPU-native fast path: K-major layout, zero layout transforms ---
+# --- 2. K-major layout ---
 wqt, wst = q.fusedQuantizeMx(w, h, method="quest", layout="kmajor")
 xqt, xst = q.fusedQuantizeMx(x, h, method="quest", layout="kmajor")
 yk = q.matmul_mxf4_bf16_kmajor(xqt, wqt, xst, wst, one)

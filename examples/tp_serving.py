@@ -2,9 +2,9 @@
 
 Shards a W4A4 MXFP4 model Megatron-style over the ``tp`` mesh axis
 (heads + MLP columns; KV cache sharded over heads) and generates with
-one compiled dispatch.  Runs anywhere: on a TPU pod slice the mesh
-axes map to real chips and the two per-layer psums ride ICI; here it
-demonstrates on an 8-device virtual CPU mesh.
+one compiled dispatch.  On a machine with several GPUs the mesh axis
+maps to the cards and the two per-layer psums cross NVLink; on a CPU
+it runs on an 8-device virtual mesh.
 
     python examples/tp_serving.py
 """
@@ -13,17 +13,13 @@ import sys
 
 os.environ.setdefault("XLA_FLAGS", os.environ.get("XLA_FLAGS", "")
                       + " --xla_force_host_platform_device_count=8")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from qutlass_tpu.profiling import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 import jax
-
-try:
-    on_tpu = jax.default_backend() == "tpu"
-except RuntimeError:      # e.g. stale JAX_PLATFORMS from a TPU plugin env
-    on_tpu = False
-if not on_tpu:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 from qutlass_tpu.models import (init_params, quantize_model_weights,

@@ -1,9 +1,11 @@
-"""qutlass_tpu — TPU-native microscaling (MX/NV FP4, MXFP8) quantized BLAS.
+"""qutlass_tpu — microscaling (MX/NV FP4, MXFP8) quantized BLAS in JAX.
 
-A ground-up JAX/Pallas rebuild of the capabilities of IST-DASLab/qutlass
-for TPU: fused rotation+quantization kernels, block-scaled GEMMs, and the
-Quartet QAT backward kernels, plus quantized linear layers, model
-integration and sharding utilities.
+A JAX rebuild of the capabilities of IST-DASLab/qutlass: fused
+rotation+quantization, block-scaled GEMMs and the Quartet QAT backward
+ops, plus quantized linear layers, model integration and sharding
+utilities.  The ops are plain XLA programs; on an NVIDIA GPU the
+production activation quantizer of the int8 evaluator is a fused Pallas
+kernel (kernels/quantize_int8.py).
 
 Public API mirrors the reference (qutlass/__init__.py) with the same
 names and call shapes; snake_case aliases are provided.  On-device
@@ -13,19 +15,16 @@ storage for sub-byte formats:
   * e8m0 scales: ``uint8`` exponent bytes
   * e4m3 data/scales: ``uint8`` bit patterns
 
-(TPU XLA does not accept fp8/e8m0 array dtypes on device; on host these
-bytes can be viewed with ``ml_dtypes``.)
+(On host these bytes can be viewed with ``ml_dtypes``.)
 """
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
 
 from . import io, profiling, utils
 from .formats import codecs, golden
-from .ops import dispatch
+from .kernels import quantize_int8 as _qi8
 from .ops import emulation as _emu
 from .ops import validation as _val
 from .utils import (ceil_div, dct_matrix, from_blocked, get_padded_shape_mx,
@@ -98,36 +97,10 @@ def _norm_scales(sf: jax.Array, rows: int, cols: int) -> jax.Array:
     return sf
 
 
-_PALLAS_MOD = "unset"
-
-
-def _kernels():
-    """Import the Pallas kernels lazily; None if unavailable."""
-    global _PALLAS_MOD
-    if _PALLAS_MOD == "unset":
-        try:
-            from .ops import pallas_ops
-            _PALLAS_MOD = pallas_ops
-        except ImportError:
-            _PALLAS_MOD = None
-    return _PALLAS_MOD
-
-
-def _route(shape_ok: bool, shape=(), constraint: str = "K % 128 == 0"):
-    """Return the Pallas module when it should handle this call, else None.
-
-    An unsupported shape under ``backend=auto`` is a silent perf cliff
-    (the XLA emulation graph runs at a fraction of kernel speed), so it
-    is recorded — and warned about under ``QUTLASS_TPU_DEBUG=1`` — via
-    :func:`dispatch.note_fallback`, tagged with the public op name.
-    """
-    if not dispatch.use_pallas(shape_ok):
-        if not shape_ok and dispatch.get_backend() == "auto":
-            import sys as _sys
-            dispatch.note_fallback(_sys._getframe(1).f_code.co_name,
-                                   shape, constraint)
-        return None
-    return _kernels()
+def _gpu_int8_kernel(k: int) -> bool:
+    """Whether the fused rotate+quantize+int8 kernel takes this call:
+    on a GPU, for K a multiple of its 128-wide chunk."""
+    return jax.default_backend() == "gpu" and k % 128 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +116,7 @@ def fusedQuantizeMx(a: jax.Array, h: jax.Array, *, method: str = "quest",
     Returns (e2m1 u8 [..., K/2], e8m0 u8 [pad_rows, pad_cols]
     [, clip_mask u8 [..., K/8]]).  Reference: qutlass/__init__.py:149-180.
 
-    ``layout="kmajor"`` returns the TPU GEMM-native layout instead:
+    ``layout="kmajor"`` returns the K-major layout instead:
     (e2m1 u8 [K/2, rows], e8m0 u8 [K/32, rows][, mask u8 [K/8, rows]]),
     unpadded — feed directly to :func:`matmul_mxf4_bf16_kmajor`.
     """
@@ -155,10 +128,9 @@ def fusedQuantizeMx(a: jax.Array, h: jax.Array, *, method: str = "quest",
     k = a.shape[-1]
     rot = _val.check_rotation(h, k)
     _val.check_group_dim("fusedQuantizeMx", k, 32)
-    kn = _route(k % 128 == 0, a.shape)
-    impl = kn.fused_quantize_mx if kn else _emu.fused_quantize_mx
-    return impl(a, h, rot_size=rot, method=method, return_mask=return_mask,
-                layout=layout)
+    return _emu.fused_quantize_mx(
+        a, h, rot_size=rot, method=method, return_mask=return_mask,
+        layout=layout)
 
 
 def fusedQuantizeNv(a: jax.Array, h: jax.Array, global_scale: jax.Array, *,
@@ -175,24 +147,22 @@ def fusedQuantizeNv(a: jax.Array, h: jax.Array, global_scale: jax.Array, *,
     k = a.shape[-1]
     rot = _val.check_rotation(h, k)
     _val.check_group_dim("fusedQuantizeNv", k, 16)
-    kn = _route(k % 128 == 0, a.shape)
-    impl = kn.fused_quantize_nv if kn else _emu.fused_quantize_nv
-    return impl(a, h, global_scale, rot_size=rot, method=method,
-                layout=layout)
+    return _emu.fused_quantize_nv(
+        a, h, global_scale, rot_size=rot, method=method, layout=layout)
 
 
 def fusedQuantizeMxInt8(a: jax.Array, h: jax.Array, *,
                         method: str = "quest"):
-    """Fused rotation + MXFP4 quantization + int8-MXU encode (one
-    kernel on TPU — the production activation path of the int8
-    evaluator, ops/int8path.py).
+    """Fused rotation + MXFP4 quantization + int8 encode — the
+    activation path of the int8 evaluator (ops/int8path.py).
 
-    Returns (a' int8 [K, rows] natural K order, row_scale f32 [rows]
-    = 2^(E-4), e8m0 scale bytes u8 [K/32, rows]).  Feed (a',
+    a: bf16 [rows, K].  Returns (a' int8 [rows, K], row_scale f32
+    [rows] = 2^(E-4), e8m0 scale bytes u8 [rows, K/32]).  Feed (a',
     row_scale) with a :func:`~qutlass_tpu.ops.int8path.prepare_weight_int8`
-    weight to ``matmul_mxf4_bf16_int8_kmajor``.  TPU-native extension
-    (no reference counterpart: the reference's fp4 tensor cores need no
-    int8 bridge).
+    weight to ``int8path.matmul_mxf4_bf16_int8``.  On a GPU with
+    K % 128 == 0 this runs the fused kernel (kernels/quantize_int8.py);
+    elsewhere its XLA twin, with the same results.  No reference
+    counterpart: the reference's fp4 tensor cores need no int8 bridge.
     """
     if method not in ("quest", "abs_max"):
         raise ValueError(f"invalid method {method!r}, must be 'quest' or 'abs_max'")
@@ -200,19 +170,19 @@ def fusedQuantizeMxInt8(a: jax.Array, h: jax.Array, *,
     k = a.shape[-1]
     rot = _val.check_rotation(h, k)
     _val.check_group_dim("fusedQuantizeMxInt8", k, 32)
-    kn = _route(k % 128 == 0, a.shape)
-    impl = kn.fused_quantize_mx_int8 if kn else _emu.fused_quantize_mx_int8
-    return impl(a, h, rot_size=rot, method=method)
+    if _gpu_int8_kernel(k):
+        return _qi8.quantize_int8(a, h, fmt="mx", method=method)
+    return _emu.fused_quantize_mx_int8(a, h, rot_size=rot, method=method)
 
 
 def fusedQuantizeNvInt8(a: jax.Array, h: jax.Array, global_scale: jax.Array,
                         *, method: str = "abs_max"):
-    """Fused rotation + NVFP4 quantization + int8-MXU encode.
+    """Fused rotation + NVFP4 quantization + int8 encode.
 
-    Returns (a' int8 [K, rows] natural K order, sigma f32 [rows],
-    e4m3 scale bytes u8 [K/16, rows]); the encode carries the
-    documented bounded rounding (<= rowmax/254 per element —
-    ops/int8path.py).  TPU-native extension.
+    a: bf16 [rows, K].  Returns (a' int8 [rows, K], sigma f32 [rows],
+    e4m3 scale bytes u8 [rows, K/16]); the encode carries the documented
+    bounded rounding (<= rowmax/254 per element — ops/int8path.py).
+    Kernel choice as :func:`fusedQuantizeMxInt8`.
     """
     if method not in ("quest", "abs_max"):
         raise ValueError(f"invalid method {method!r}, must be 'quest' or 'abs_max'")
@@ -220,9 +190,10 @@ def fusedQuantizeNvInt8(a: jax.Array, h: jax.Array, global_scale: jax.Array,
     k = a.shape[-1]
     rot = _val.check_rotation(h, k)
     _val.check_group_dim("fusedQuantizeNvInt8", k, 16)
-    kn = _route(k % 128 == 0, a.shape)
-    impl = kn.fused_quantize_nv_int8 if kn else _emu.fused_quantize_nv_int8
-    return impl(a, h, global_scale, rot_size=rot, method=method)
+    if _gpu_int8_kernel(k):
+        return _qi8.quantize_int8(a, h, global_scale, fmt="nv", method=method)
+    return _emu.fused_quantize_nv_int8(a, h, global_scale, rot_size=rot,
+                                       method=method)
 
 
 # snake_case aliases
@@ -236,7 +207,7 @@ fused_quantize_nv_int8 = fusedQuantizeNvInt8
 # block-scaled GEMMs
 # ---------------------------------------------------------------------------
 
-def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha, backend: str | None = None):
+def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
     """out[M,N] = (dq(a) @ dq(b)^T) * alpha in bf16.
 
     a: u8 [M, K/2], b: u8 [N, K/2]; scales row-major (or the flattened
@@ -246,24 +217,19 @@ def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha, backend: str | None = None):
     a_sf = _norm_scales(a_sf, m, k // 32)
     b_sf = _norm_scales(b_sf, n, k // 32)
     a, b = _as_bytes(a), _as_bytes(b)
-    kn = None if backend == "emulation" else _route(k % 128 == 0, a.shape)
-    impl = kn.matmul_mxf4_bf16_tn if kn else _emu.matmul_mxf4_bf16_tn
-    return impl(a, b, a_sf, b_sf, alpha)
+    return _emu.matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha)
 
 
 def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha,
                             out_dtype=jnp.bfloat16):
-    """K-major MXFP4 GEMM — zero layout transforms on TPU.
+    """K-major MXFP4 GEMM (the fp4-weight path of quantized linears).
 
     Operands come from ``fusedQuantizeMx(..., layout="kmajor")``:
     at u8 [K/2, M], bt u8 [K/2, N], scales u8 [K/32, M] / [K/32, N].
-    This is the production path for quantized linear layers.
     """
-    k = at.shape[0] * 2
-    kn = _route(k % 128 == 0)
-    impl = kn.matmul_mxf4_bf16_kmajor if kn else _emu.matmul_mxf4_bf16_kmajor
-    return impl(_as_bytes(at), _as_bytes(bt), _as_bytes(a_sft),
-                _as_bytes(b_sft), alpha, out_dtype=out_dtype)
+    return _emu.matmul_mxf4_bf16_kmajor(
+        _as_bytes(at), _as_bytes(bt), _as_bytes(a_sft), _as_bytes(b_sft),
+        alpha, out_dtype=out_dtype)
 
 
 def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
@@ -274,99 +240,68 @@ def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
     activation-side fast path; weights stay packed).  Bit-identical to
     :func:`matmul_mxf4_bf16_kmajor`.
     """
-    k = at.shape[0]
-    kn = _route(k % 128 == 0)
-    impl = (kn.matmul_mxf4_bf16_kmajor_codes if kn
-            else _emu.matmul_mxf4_bf16_kmajor_codes)
-    return impl(_as_bytes(at), _as_bytes(bt), _as_bytes(a_sft),
-                _as_bytes(b_sft), alpha)
+    return _emu.matmul_mxf4_bf16_kmajor_codes(
+        _as_bytes(at), _as_bytes(bt), _as_bytes(a_sft), _as_bytes(b_sft),
+        alpha)
 
 
 def fused_linear_mxf4(x, wqt, wst, h, alpha=None, *, method: str = "quest"):
     """W4A4 linear against a pre-quantized K-major weight.
 
-    Executes as the composed quantize + GEMM pipeline, which measures
-    faster than the single fused kernel at every M on v5e (the fused
-    launch keeps a bm x N fp32 accumulator stack alive across the whole
-    K sweep, starving VMEM).  Set ``QUTLASS_TPU_FUSED_LINEAR=1`` to
-    force the single-kernel launch (bit-identical results).
+    Runs as the composed quantize + GEMM pipeline.
     """
     rot = h.shape[-1]
     k = x.shape[-1]
     if alpha is None:
         alpha = jnp.ones((1,), jnp.float32)
-    kn = _route(k % 128 == 0)
-    if kn is not None and os.environ.get("QUTLASS_TPU_FUSED_LINEAR",
-                                         "") in ("", "0"):
-        al = alpha if method == "quest" else alpha * (1.0 / 9.0)
-        x2 = x.reshape(-1, k)
-        xqt, xst = kn.fused_quantize_mx(x2, h, rot_size=rot, method=method,
-                                        layout="kmajor")
-        y = kn.matmul_mxf4_bf16_kmajor(xqt, _as_bytes(wqt), xst,
-                                       _as_bytes(wst), al)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-    impl = kn.fused_linear_mxf4 if kn else _emu.fused_linear_mxf4
-    y = impl(x.reshape(-1, k), _as_bytes(wqt), _as_bytes(wst), h, alpha,
-             rot_size=rot, method=method)
+    y = _emu.fused_linear_mxf4(
+        x.reshape(-1, k), _as_bytes(wqt), _as_bytes(wst), h, alpha,
+        rot_size=rot, method=method)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def matmul_ada_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
-    """Small-batch variant — same kernel with small-M tiles on TPU.
+    """Small-batch variant — the same op here.
 
     The reference needs a second kernel for this regime
-    (gemm_ada.cu:29-135) because of the Blackwell scale swizzle; on TPU
-    the tile table covers it (SURVEY.md §2.6 note).
+    (gemm_ada.cu:29-135) because of the Blackwell scale swizzle; the
+    row-major scale layout here needs none (SURVEY.md §2.6 note).
     """
     return matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha)
 
 
-def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha, backend: str | None = None):
+def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
     """NVFP4 GEMM (group 16, e4m3 scales). Reference gemm.cu:250-326."""
     m, n, k = _val.check_matmul_tn(a, b, 16)
     a_sf = _norm_scales(a_sf, m, k // 16)
     b_sf = _norm_scales(b_sf, n, k // 16)
     a, b = _as_bytes(a), _as_bytes(b)
-    kn = None if backend == "emulation" else _route(k % 128 == 0, a.shape)
-    impl = kn.matmul_nvf4_bf16_tn if kn else _emu.matmul_nvf4_bf16_tn
-    return impl(a, b, a_sf, b_sf, alpha)
+    return _emu.matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha)
 
 
 def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha,
                             out_dtype=jnp.bfloat16):
     """K-major NVFP4 GEMM — operands from
     ``fusedQuantizeNv(..., layout="kmajor")``."""
-    k = at.shape[0] * 2
-    kn = _route(k % 128 == 0)
-    impl = kn.matmul_nvf4_bf16_kmajor if kn else _emu.matmul_nvf4_bf16_kmajor
-    return impl(_as_bytes(at), _as_bytes(bt), _as_bytes(a_sft),
-                _as_bytes(b_sft), alpha, out_dtype=out_dtype)
+    return _emu.matmul_nvf4_bf16_kmajor(
+        _as_bytes(at), _as_bytes(bt), _as_bytes(a_sft), _as_bytes(b_sft),
+        alpha, out_dtype=out_dtype)
 
 
 def fused_linear_nvf4(x, wqt, wst, h, global_scale, alpha=None, *,
                       method: str = "abs_max"):
-    """Single-kernel NVFP4 linear: rotate+quantize x (group 16, e4m3
-    scales) and GEMM against a pre-quantized K-major weight in one
-    launch.  ``global_scale`` is the activation-side global scale; fold
-    the weight-side global scale into ``alpha``.
+    """NVFP4 linear: rotate+quantize x (group 16, e4m3 scales) and GEMM
+    against a pre-quantized K-major weight.  ``global_scale`` is the
+    activation-side global scale; fold the weight-side global scale
+    into ``alpha``.
     """
     rot = h.shape[-1]
     k = x.shape[-1]
     if alpha is None:
         alpha = jnp.ones((1,), jnp.float32)
-    kn = _route(k % 128 == 0)
-    if kn is not None and os.environ.get("QUTLASS_TPU_FUSED_LINEAR",
-                                         "") in ("", "0"):
-        # composed pipeline (see fused_linear_mxf4) — bit-identical
-        x2 = x.reshape(-1, k)
-        xqt, xst = kn.fused_quantize_nv(x2, h, global_scale, rot_size=rot,
-                                        method=method, layout="kmajor")
-        y = kn.matmul_nvf4_bf16_kmajor(xqt, _as_bytes(wqt), xst,
-                                       _as_bytes(wst), alpha)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-    impl = kn.fused_linear_nvf4 if kn else _emu.fused_linear_nvf4
-    y = impl(x.reshape(-1, k), _as_bytes(wqt), _as_bytes(wst), h,
-             global_scale, alpha, rot_size=rot, method=method)
+    y = _emu.fused_linear_nvf4(x.reshape(-1, k), _as_bytes(wqt),
+                               _as_bytes(wst), h, global_scale, alpha,
+                               rot_size=rot, method=method)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
@@ -376,9 +311,7 @@ def matmul_mxf8_bf16_tn(a, b, a_sf, b_sf, alpha):
     a_sf = _norm_scales(a_sf, m, k // 32)
     b_sf = _norm_scales(b_sf, n, k // 32)
     a, b = _as_bytes(a), _as_bytes(b)
-    kn = _route(k % 128 == 0)
-    impl = kn.matmul_mxf8_bf16_tn if kn else _emu.matmul_mxf8_bf16_tn
-    return impl(a, b, a_sf, b_sf, alpha)
+    return _emu.matmul_mxf8_bf16_tn(a, b, a_sf, b_sf, alpha)
 
 
 def matmul_mxf8_bf16_nn(a, b, a_sf, b_sf, alpha):
@@ -388,9 +321,7 @@ def matmul_mxf8_bf16_nn(a, b, a_sf, b_sf, alpha):
     a_sf = _norm_scales(a_sf, m, k // 32)
     b_sf = _norm_scales(b_sf, n, k // 32)
     a, b = _as_bytes(a), _as_bytes(b)
-    kn = _route(k % 128 == 0)
-    impl = kn.matmul_mxf8_bf16_nn if kn else _emu.matmul_mxf8_bf16_nn
-    return impl(a, b, a_sf, b_sf, alpha)
+    return _emu.matmul_mxf8_bf16_nn(a, b, a_sf, b_sf, alpha)
 
 
 # ---------------------------------------------------------------------------
@@ -404,9 +335,7 @@ def backward_t_bf16(x, h):
     Reference: __init__.py:206-243 / quartet_bwd_sm120.cu:237-325.
     """
     rot = h.shape[-1]
-    kn = _route(x.shape[-2] % 128 == 0 and x.shape[-1] % 128 == 0)
-    impl = kn.backward_t_bf16 if kn else _emu.backward_t_bf16
-    return impl(x, h, rot_size=rot)
+    return _emu.backward_t_bf16(x, h, rot_size=rot)
 
 
 def backward_qt_bf16(x_e2m1, x_e8m0, h, alpha):
@@ -419,9 +348,7 @@ def backward_qt_bf16(x_e2m1, x_e8m0, h, alpha):
     n = x_e2m1.shape[-1] * 2
     if x_e8m0.ndim == x_e2m1.ndim and x_e8m0.shape[-1] != n // 32:
         x_e8m0 = x_e8m0[..., : x_e2m1.shape[-2], : n // 32]
-    kn = _route(n % 128 == 0 and x_e2m1.shape[-2] % 128 == 0)
-    impl = kn.backward_qt_bf16 if kn else _emu.backward_qt_bf16
-    return impl(x_e2m1, x_e8m0, h, alpha, rot_size=rot)
+    return _emu.backward_qt_bf16(x_e2m1, x_e8m0, h, alpha, rot_size=rot)
 
 
 def backward_bf16_square_double_mxfp8(x_bf16):
@@ -430,32 +357,26 @@ def backward_bf16_square_double_mxfp8(x_bf16):
     Pads M to 128 like the reference (__init__.py:284-293).
     """
     x = pad_to_block(x_bf16, [0], 128)
-    kn = _route(x.shape[0] % 128 == 0 and x.shape[1] % 128 == 0)
-    impl = (kn.backward_bf16_square_double_mxfp8 if kn
-            else _emu.backward_bf16_square_double_mxfp8)
-    return impl(x)
+    return _emu.backward_bf16_square_double_mxfp8(x)
 
 
 def backward_square_double_scaled(x_bf16):
     """Square-double quantization emitting dequant-scaled bf16 [Mp, N].
 
-    TPU-native extension (no reference analogue): identical
+    An extension with no reference analogue: identical
     quantization points to :func:`backward_bf16_square_double_mxfp8`,
     returned as ``e4m3_value * 2^(scale-127)`` in bf16 (exact — a 4-bit
     significand times a power of two).  The QAT backward consumes this
-    with plain bf16 MXU matmuls instead of decode-bound MXFP8 GEMMs.
+    with plain bf16 matmuls instead of decode-bound MXFP8 GEMMs.
     """
     x = pad_to_block(x_bf16, [0], 128)
-    kn = _route(x.shape[0] % 128 == 0 and x.shape[1] % 128 == 0)
-    impl = (kn.backward_square_double_scaled if kn
-            else _emu.backward_square_double_scaled)
-    return impl(x)
+    return _emu.backward_square_double_scaled(x)
 
 
 def mxfp4_transpose_scaled(x_fp4, scales):
     """Dequant-transpose-requant emitting dequant-scaled bf16 [N, Mp].
 
-    TPU-native twin of :func:`mxfp4_transpose_mxfp8` (same pad-to-256
+    Scaled-bf16 twin of :func:`mxfp4_transpose_mxfp8` (same pad-to-256
     semantics; pad rows quantize to zeros).
     """
     x_fp4 = _as_bytes(x_fp4)
@@ -469,13 +390,11 @@ def mxfp4_transpose_scaled(x_fp4, scales):
     if scales.shape[0] < mp:
         pad = jnp.full((mp - scales.shape[0], n // 32), 127, jnp.uint8)
         scales = jnp.concatenate([scales, pad], axis=0)
-    kn = _route(mp % 256 == 0 and n % 128 == 0)
-    impl = kn.mxfp4_transpose_scaled if kn else _emu.mxfp4_transpose_scaled
-    return impl(x_fp4, scales)
+    return _emu.mxfp4_transpose_scaled(x_fp4, scales)
 
 
 def mxfp4_transpose_scaled_kmajor(qt, st):
-    """K-major-input scaled transpose (TPU-native QAT fast path).
+    """K-major-input scaled transpose (the QAT fast path).
 
     qt u8 [K/2, rows], st u8 [K/32, rows] — the layout emitted by
     ``fusedQuantizeMx(..., layout="kmajor")`` — to dequant-scaled bf16
@@ -483,10 +402,7 @@ def mxfp4_transpose_scaled_kmajor(qt, st):
     on the row-major operand.
     """
     qt, st = _as_bytes(qt), _as_bytes(st)
-    kn = _route(qt.shape[0] % 64 == 0)
-    impl = (kn.mxfp4_transpose_scaled_kmajor if kn
-            else _emu.mxfp4_transpose_scaled_kmajor)
-    return impl(qt, st)
+    return _emu.mxfp4_transpose_scaled_kmajor(qt, st)
 
 
 def mxfp4_transpose_mxfp8(x_fp4, scales):
@@ -506,6 +422,4 @@ def mxfp4_transpose_mxfp8(x_fp4, scales):
     if scales.shape[0] < mp:
         pad = jnp.full((mp - scales.shape[0], n // 32), 127, jnp.uint8)
         scales = jnp.concatenate([scales, pad], axis=0)
-    kn = _route(mp % 256 == 0 and n % 128 == 0)
-    impl = kn.mxfp4_transpose_mxfp8 if kn else _emu.mxfp4_transpose_mxfp8
-    return impl(x_fp4, scales)
+    return _emu.mxfp4_transpose_mxfp8(x_fp4, scales)

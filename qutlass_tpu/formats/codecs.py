@@ -39,8 +39,24 @@ _RTNE = lax.RoundingMethod.TO_NEAREST_EVEN
 
 
 def _bitcast(x, dtype):
-    """Same-width bitcast that lowers in both XLA and Mosaic."""
     return lax.bitcast_convert_type(x, dtype)
+
+
+def rint_small(y: jax.Array) -> jax.Array:
+    """Round-to-nearest-even of finite fp32 ``y`` with ``|y| < 2^23``.
+
+    Truncate, then step away from zero when the (exact) remainder is
+    above one half, or exactly one half with an odd integer part.
+    Bitwise equal to ``lax.round(y, TO_NEAREST_EVEN)`` in that range,
+    and built from converts and compares only, so it also lowers inside
+    Pallas kernels on the Triton route, which has no rounding primitive.
+    (The ``(y + 1.5*2^23) - 1.5*2^23`` trick is not safe here: compilers
+    may fold it back to ``y``.)
+    """
+    t = y.astype(jnp.int32)
+    f = jnp.abs(y - t.astype(jnp.float32))
+    up = (f > 0.5) | ((f == 0.5) & ((t & 1) == 1))
+    return jnp.where(up, t + jnp.where(y < 0, -1, 1), t).astype(jnp.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +284,7 @@ def _e4m3_round_mag(a: jax.Array) -> jax.Array:
     rbits = (bits + lsb + jnp.int32(0x7FFFF)) & jnp.int32(~0xFFFFF)
     rn = _bitcast(rbits, jnp.float32)
     rn = jnp.minimum(rn, E4M3_MAX)  # 448 + eps rounds up to 512; clamp back
-    sub = lax.round(a * 512.0, _RTNE) * (1.0 / 512.0)
+    sub = rint_small(a * 512.0) * (1.0 / 512.0)
     return jnp.where(a < 2.0 ** -6, sub, rn)
 
 
@@ -301,7 +317,7 @@ def e4m3_rtne_bytes(x: jax.Array) -> jax.Array:
     exp32 = (vbits >> 23) & 0xFF
     mant3 = (vbits >> 20) & 7
     is_sub = exp32 < (127 - 6)
-    sub_mant = lax.round(v * 512.0, _RTNE).astype(jnp.int32)
+    sub_mant = rint_small(v * 512.0).astype(jnp.int32)
     byte = jnp.where(v == 0.0, 0,
                      jnp.where(is_sub, sub_mant,
                                ((exp32 - 127 + 7) << 3) | mant3))
@@ -404,30 +420,40 @@ def nv_scale_quest(s1: jax.Array, s2: jax.Array) -> jax.Array:
     return jnp.sqrt(var) * QUEST_CONST + 1e-8
 
 
-def nv_absmax_scale_bytes(amax: jax.Array, global_scale: jax.Array):
+def nv_absmax_scale_bytes(amax: jax.Array, global_scale: jax.Array,
+                          div=jnp.divide):
     """NVFP4 abs-max (vLLM-compatible) scale: byte and output multiplier.
 
     epilogue_quant.h:1650-1693:
         SF      = e4m3(global_scale * amax / 6)
         out_mul = SF != 0 ? 1 / (SF / global_scale) : 0
-    Returns (scale_byte int32, out_mul fp32).
+    Returns (scale_byte int32, out_mul fp32).  ``div`` is the
+    correctly rounded fp32 division of the calling context (a GPU kernel
+    passes its own, since the Triton route's ``/`` is approximate).
     """
     sf = global_scale * (amax * (1.0 / 6.0))
     byte = e4m3_rtne_bytes(sf)
+    return byte, nv_absmax_mul(byte, global_scale, div)
+
+
+def nv_absmax_mul(byte: jax.Array, global_scale: jax.Array, div=jnp.divide):
+    """The abs-max output multiplier of an e4m3 scale byte."""
     sfq = e4m3_decode_f32(byte)
-    out_mul = jnp.where(sfq != 0.0, global_scale / sfq, 0.0)
-    out_mul = jnp.where(jnp.isnan(sfq), 0.0, out_mul)
-    return byte, out_mul
+    out_mul = jnp.where(sfq != 0.0, div(global_scale, sfq), 0.0)
+    return jnp.where(jnp.isnan(sfq), 0.0, out_mul)
 
 
-def nv_quest_scale_bytes(s1: jax.Array, s2: jax.Array):
+def nv_quest_scale_bytes(s1: jax.Array, s2: jax.Array, div=jnp.divide):
     """NVFP4 quest scale byte and output multiplier (1/scale or 0)."""
-    scale = nv_scale_quest(s1, s2)
-    byte = e4m3_rtne_bytes(scale)
+    byte = e4m3_rtne_bytes(nv_scale_quest(s1, s2))
+    return byte, nv_quest_mul(byte, div)
+
+
+def nv_quest_mul(byte: jax.Array, div=jnp.divide):
+    """The quest output multiplier of an e4m3 scale byte."""
     sq = e4m3_decode_f32(byte)
-    out_mul = jnp.where(sq > 0.0, 1.0 / sq, 0.0)
-    out_mul = jnp.where(jnp.isnan(sq), 0.0, out_mul)
-    return byte, out_mul
+    out_mul = jnp.where(sq > 0.0, div(1.0, sq), 0.0)
+    return jnp.where(jnp.isnan(sq), 0.0, out_mul)
 
 
 def mxfp8_shared_exp_bytes(amax: jax.Array, shift: int = 7) -> jax.Array:

@@ -1,3 +1,3 @@
-from . import gemm, quantize, tuning
+from . import quantize_int8
 
-__all__ = ["gemm", "quantize", "tuning"]
+__all__ = ["quantize_int8"]

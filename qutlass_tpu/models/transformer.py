@@ -134,7 +134,7 @@ def quantize_weight(w, *, h, method: str = "quest", fmt: str = "mx",
             jnp.max(jnp.abs(wh)).astype(jnp.float32), 1e-6)
         wqt, wst = q.fusedQuantizeNv(w, h, gsw, method=m, layout="kmajor")
         if weight_format in ("int8", "both"):
-            # int8-MXU NV evaluator: natural-K-order int8 + f32 row
+            # int8 NV evaluator: natural-K-order int8 + f32 row
             # scale (bounded rounding <= rowmax/254 — no exactness
             # regime exists for e4m3 scales; ops/int8path.py); natural
             # order shards contiguously under TP K-splits
@@ -175,7 +175,7 @@ def quantize_model_weights(cfg: ModelConfig, params, h: jax.Array,
     f32 row scale and carries a bounded rounding instead of MX's
     exactness-by-deficit contract):
       "int8"  per-row-exponent int8 mantissas (ops/int8path.py) — the
-              int8-MXU path, fastest at every M on v5e (1 byte/param).
+              int8 tensor-core path (1 byte/param).
               Falls back to fp4 per tensor when the row exponent spread
               exceeds the 3-bit budget (checked here, host-side — the
               int8 evaluation is bit-exact whenever stored).
@@ -263,11 +263,13 @@ def calibrate_nv_gsx(cfg: ModelConfig, params, tokens: jax.Array,
 # ---------------------------------------------------------------------------
 
 def _rotate_rows(x, h):
-    """Apply the per-rot_size-chunk rotation along the last axis (f32)."""
+    """Apply the per-rot_size-chunk rotation along the last axis (f32,
+    full precision: it sets the NVFP4 global scales)."""
     rot = h.shape[-1]
     xr = x.reshape(-1, rot).astype(jnp.float32)
     out = jax.lax.dot_general(xr, h.astype(jnp.float32),
                               (((1,), (0,)), ((), ())),
+                              precision=jax.lax.Precision.HIGHEST,
                               preferred_element_type=jnp.float32)
     return out.reshape(x.shape)
 
@@ -278,12 +280,12 @@ def _pinned(x):
 
     Whole-model numerics are fusion-context sensitive (docs/NUMERICS.md):
     XLA schedules the f32 reductions (rms-norm mean, softmax) differently
-    depending on what surrounds them (Pallas custom call vs XLA int8
+    depending on what surrounds them (a custom call vs an XLA int8
     dot), flipping 1-ulp quantizer inputs; W4A4 amplifies any such seed
     difference chaotically (a flipped bf16 tie flips an fp4 code — a
     ~6% value step).  Pinning the reduction between barriers isolates it
     into its own fusion, compiled identically in every surrounding
-    context, which restores bitwise agreement between the int8-MXU and
+    context, which restores bitwise agreement between the int8 and
     fp4-decode evaluators (benchmarks/agreement_gate.py).  Enabled by
     ``QUTLASS_TPU_PIN_NORMS`` (read at trace time).
     """
@@ -358,7 +360,7 @@ def _linear(x, w, h, method, quantized: bool, out_dtype=None):
         # underflow floor for the tiniest groups; measured as a small
         # TP-vs-single-device cosine drop on the tiny MoE config, so
         # the EXACT amax stays the default until the bound's perf win
-        # is confirmed on-device (benchmarks/tpu_recheck_r2s4.py).
+        # is measured on the card.
         # 1.004 slack covers bf16 rounding of H's entries (<= 2^-9 per
         # column norm) + f32 accumulation.  The env var is read at
         # TRACE time: set it before the first compile of each shape —
@@ -392,12 +394,11 @@ def _linear(x, w, h, method, quantized: bool, out_dtype=None):
                 xh_amax.astype(jnp.float32), 1e-6)
         alpha = (1.0 / (gsx * w["gs"])).reshape(1)
         if "nvi8" in w:
-            # int8-MXU NV evaluator, fused quantize+encode kernel
-            # (~2x bf16 peak; bounded rounding <= rowmax/254 per
+            # int8 NV evaluator (bounded rounding <= rowmax/254 per
             # operand — ops/int8path.py)
             xi, sx, _ = q.fusedQuantizeNvInt8(x2, h, gsx, method="abs_max")
-            y = _i8.matmul_mxf4_bf16_int8_kk(xi, w["nvi8"], sx, w["nvsb"],
-                                             alpha, out_dtype=od)
+            y = _i8.matmul_mxf4_bf16_int8_kk(xi.T, w["nvi8"], sx,
+                                             w["nvsb"], alpha, out_dtype=od)
         else:
             xqt, xst = q.fusedQuantizeNv(x2, h, gsx, method="abs_max",
                                          layout="kmajor")
@@ -411,26 +412,12 @@ def _linear(x, w, h, method, quantized: bool, out_dtype=None):
     a_mx = (1.0 if method == "quest" else 1 / 3) * \
         (1 / 3 if "am" in w else 1.0)
     if "wi8" in w:
-        # int8-MXU evaluator (ops/int8path.py): quantize straight to
-        # the int8 operand, whole-K int8 dot + rank-1 fixup.  Beats
-        # bf16 at every M.  The single-shot whole-K kernel (round 3)
-        # emits int8 in one pass — no codes round-trip — and composes
-        # fastest whenever it fits its raised VMEM budget (r5: covers
-        # every reference-table K incl. 25600/28672 at bm=128 —
-        # kernels/tuning.quantize_int8_oneshot_bm); only K ~50k+ falls
-        # back to the two-pass composition (XLA overlaps the separate
-        # encode's VPU work under the int8 dot;
-        # benchmarks/exp_oneshot_largek_r5.log, exp_fused_int8_quant2).
-        from ..kernels.tuning import quantize_int8_oneshot_bm
-        if quantize_int8_oneshot_bm(x2.shape[0], k):
-            ai, sa, _ = q.fusedQuantizeMxInt8(x2, h, method=method)
-        else:
-            cq, cs = q.fusedQuantizeMx(x2, h, method=method,
-                                       layout="kmajor_codes")
-            ai, sa, _ = _i8.encode_int8(cq, cs, kmajor=True)
-        y = _i8.matmul_mxf4_bf16_int8_kmajor(ai, w["wi8"], sa, w["wsb"],
-                                             jnp.float32(a_mx),
-                                             out_dtype=od)
+        # int8 evaluator (ops/int8path.py): quantize straight to the
+        # row-major int8 operand, then one whole-K int8 dot with both
+        # operands K-contiguous and a rank-1 fixup
+        ai, sa, _ = q.fusedQuantizeMxInt8(x2, h, method=method)
+        y = _i8.matmul_mxf4_bf16_int8(ai, w["wi8"], sa, w["wsb"],
+                                      jnp.float32(a_mx), out_dtype=od)
         return _pinned(y).reshape(*x.shape[:-1], n)
     # composed kmajor quantize + decode GEMM (the fp4-weight path)
     xqt, xst = q.fusedQuantizeMx(x2, h, method=method, layout="kmajor")
@@ -440,81 +427,11 @@ def _linear(x, w, h, method, quantized: bool, out_dtype=None):
     return _pinned(y).reshape(*x.shape[:-1], n)
 
 
-def _flash_eligible(cfg: ModelConfig, t: int) -> bool:
-    """Route prefill attention through the Pallas TPU flash kernel?
-
-    The einsum path materializes fp32 scores [b, g, rep, t, t] in HBM
-    (~0.5 GB/layer at t=2048 for the Qwen3-8B geometry); the flash
-    kernel tiles the online softmax in VMEM and wins 1.05-1.13x on the
-    whole prefill in exactly that regime (benchmarks/exp_flashattn.py).
-    ``QUTLASS_TPU_FLASH=0`` forces the einsum path, ``1`` forces flash
-    wherever legal; default ``auto`` uses flash on TPU for full-causal
-    prefill at t >= 512 with t % 512 == 0 (the 512-block divisibility
-    is MEASURED, not just a kernel constraint — see below).
-
-    NOTE: like QUTLASS_TPU_PIN_NORMS / QUTLASS_TPU_SCAN_GENERATE, the
-    env var is read at trace time and jit caches are NOT keyed on it —
-    flipping it mid-process leaves previously traced programs on the
-    old setting.  Set it before the first model call.
-    """
-    flag = os.environ.get("QUTLASS_TPU_FLASH", "auto")
-    if flag == "0":
-        return False
-    from ..ops import dispatch
-    if not dispatch.on_tpu():
-        return False
-    if cfg.sliding_window is not None:
-        return False  # window mask: einsum path handles it
-    if cfg.head_dim % 128 or t % 512:
-        return False  # kernel block divisibility (block_q = 512)
-    # measured (exp_attn_tune_r3.py, v5e, 32q/8kv hd=128): the kernel's
-    # DEFAULT block sizes leave it at ~15-17 TF/s (1952 us at t=2048,
-    # barely ahead of einsum's 2260); 1024-cubed blocks reach 88 TF/s
-    # (391 us, 5.0x) at t=2048 and 67 TF/s (128 us) at t=1024.  r5
-    # (results_attn_t512/768_r5.log): at t=512, 512-cubed blocks beat
-    # einsum 29.6 vs 33.0 us (74 vs 65 TF/s) -> flash from t >= 512.
-    # At t=768 the only legal blocks are 256-cubed, which LOSE to
-    # einsum 117 vs 72 us — the t % 512 divisibility gate is a
-    # measured decision, not just a kernel constraint.
-    return flag == "1" or t >= 512
-
-
-def _flash_block_sizes(t: int):
-    """Largest legal uniform block size for the flash kernel at seq t.
-
-    1024-cubed measured fastest at t=2048 (88 TF/s); fall back to 512
-    when t isn't 1024-divisible (eligibility already requires
-    t % 512 == 0)."""
-    from jax.experimental.pallas.ops.tpu import flash_attention as FA
-    b = 1024 if t % 1024 == 0 else 512
-    return FA.BlockSizes(block_q=b, block_k_major=b, block_k=b, block_b=1)
-
-
 def _prefill_attention(cfg: ModelConfig, qh, kh, vh, causal):
-    """Grouped-query causal attention for prefill, [b, t, h, d] layout.
-
-    Two implementations with identical math: the XLA einsum path (no
-    materialized KV repeat, fp32 scores) and the Pallas TPU flash
-    kernel (online softmax, KV repeated to full heads — rep-fold more
-    KV reads but no t*t scores traffic, a large net win at long t).
-    """
+    """Grouped-query causal attention for prefill, [b, t, h, d] layout:
+    fp32 scores, no materialized KV repeat."""
     b, t = qh.shape[0], qh.shape[1]
     rep = cfg.num_heads // cfg.num_kv_heads
-    if causal is None:
-        # callers on the flash route may pass None; build the full
-        # causal mask lazily so a gate divergence (env flip between
-        # traces) degrades to the einsum path instead of crashing
-        causal = jnp.tril(jnp.ones((t, t), bool))
-    if _flash_eligible(cfg, t):
-        from jax.experimental.pallas.ops.tpu import flash_attention as FA
-        qt = qh.transpose(0, 2, 1, 3)
-        kt = jnp.repeat(kh.transpose(0, 2, 1, 3), rep, axis=1)
-        vt = jnp.repeat(vh.transpose(0, 2, 1, 3), rep, axis=1)
-        o = FA.flash_attention(qt, kt, vt, causal=True,
-                               sm_scale=cfg.head_dim ** -0.5,
-                               block_sizes=_flash_block_sizes(t))
-        return o.transpose(0, 2, 1, 3).reshape(b, t, -1)
-    # grouped attention without materializing the rep-fold KV repeat
     q5 = qh.reshape(b, t, cfg.num_kv_heads, rep, cfg.head_dim)
     scores = jnp.einsum("btgrd,bsgd->bgrts", q5.astype(jnp.float32),
                         kh.astype(jnp.float32)) * (cfg.head_dim ** -0.5)

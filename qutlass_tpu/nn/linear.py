@@ -8,15 +8,15 @@ assembled from qutlass/__init__.py ops and tests/quartet_test.py):
               y  = matmul_mxf4_bf16_tn(xq, wq, xs, ws, 1.0)
     backward: gq' = backward_square_double_scaled(dY)      # MXFP8 pts, bf16
               w8' = mxfp4_transpose_scaled(wq, ws)         # W^T -> MXFP8 pts
-              dXh = gq' @ w8'^T            (bf16 MXU dot == mxf8 TN GEMM)
+              dXh = gq' @ w8'^T            (bf16 dot == mxf8 TN GEMM)
               dX  = (dXh * clip_mask) @ H_blockdiag^T        # Quartet STE
               x8' = mxfp4_transpose_scaled(xq, xs)         # X^T -> MXFP8 pts
-              dWh = gq'^T @ x8'^T          (bf16 MXU dot == mxf8 NN GEMM)
+              dWh = gq'^T @ x8'^T          (bf16 dot == mxf8 NN GEMM)
               dW  = dWh @ H_blockdiag^T
 
     The primed operands are the reference's MXFP8 tensors pre-decoded to
-    bf16 (e4m3 x pow2 is exact in bf16), so the backward GEMMs hit the
-    MXU at full bf16 rate; the public byte-level ops
+    bf16 (e4m3 x pow2 is exact in bf16), so the backward GEMMs run at
+    full bf16 rate; the public byte-level ops
     (backward_bf16_square_double_mxfp8 / mxfp4_transpose_mxfp8 /
     matmul_mxf8_bf16_{tn,nn}) remain the reference-parity surface.
 
@@ -33,7 +33,7 @@ import jax.numpy as jnp
 
 import qutlass_tpu as q
 from ..ops import int8path as _i8
-from ..utils import round_up
+from ..utils import block_diag_128, round_up
 
 
 def _unrotate(g: jax.Array, h: jax.Array) -> jax.Array:
@@ -41,16 +41,18 @@ def _unrotate(g: jax.Array, h: jax.Array) -> jax.Array:
 
     When K is 128-divisible the rotation is lifted to the 128x128
     block-diagonal bf16 operand (kron(I, H^T)) — one full-width bf16
-    MXU matmul instead of a contraction-``rot`` fp32 dot that runs at a
-    fraction of peak (the same lift the quantizer uses,
-    kernels/quantize.py:_h128).  Gradients tolerate the bf16 operand
-    (fp32 accumulation; H entries are exact powers of two times signs).
+    tensor-core product instead of a contraction-``rot`` fp32 dot (the
+    same lift the quantizer kernel uses, utils.block_diag_128).  The
+    gradient is rounded to bf16 first (an explicit cast; the callers
+    pass bf16 already), so every product is exact and the sum is f32.
+    The fp32 fallback asks for full f32 (``HIGHEST``): on a GPU the
+    default may be TF32, which would round a gradient that is not
+    bf16-exact.
     """
     rot = h.shape[-1]
     k = g.shape[-1]
     if k % 128 == 0:
-        from ..kernels.quantize import _h128
-        ht128 = _h128(h, rot).T                    # bf16 [128, 128]
+        ht128 = block_diag_128(h).T                # bf16 [128, 128]
         gr = g.reshape(-1, 128).astype(jnp.bfloat16)
         out = jax.lax.dot_general(gr, ht128, (((1,), (0,)), ((), ())),
                                   preferred_element_type=jnp.float32)
@@ -58,6 +60,7 @@ def _unrotate(g: jax.Array, h: jax.Array) -> jax.Array:
     gr = g.reshape(-1, rot).astype(jnp.float32)
     ht = h.reshape(rot, rot).astype(jnp.float32).T
     out = jax.lax.dot_general(gr, ht, (((1,), (0,)), ((), ())),
+                              precision=jax.lax.Precision.HIGHEST,
                               preferred_element_type=jnp.float32)
     return out.reshape(g.shape)
 
@@ -100,13 +103,12 @@ def _unrotate_planes(v_p: jax.Array, h: jax.Array) -> jax.Array:
 
         dX_b = v_even_b @ H^T[0::2, :] + v_odd_b @ H^T[1::2, :]
 
-    — two half-contraction MXU matmuls, same total FLOPs as the
+    — two half-contraction matmuls, same total FLOPs as the
     natural-order unrotation, zero relayout."""
     rot = h.shape[-1]
     r, k = v_p.shape
     if k % 128 == 0:
-        from ..kernels.quantize import _h128
-        ht = _h128(h, rot).T                            # bf16 [128, 128]
+        ht = block_diag_128(h).T                        # bf16 [128, 128]
         he, ho = ht[0::2, :], ht[1::2, :]               # [64, 128] each
         ve = v_p[:, :k // 2].reshape(-1, 64).astype(jnp.bfloat16)
         vo = v_p[:, k // 2:].reshape(-1, 64).astype(jnp.bfloat16)
@@ -126,7 +128,7 @@ def _int8_quantize_rows(v: jax.Array, axis: int):
 
     Used by the ``grad_mode="int8"`` backward: 8-bit mantissas against
     the slice max — tighter than MXFP8's 3-bit e4m3 mantissa — and the
-    contraction rides the int8 MXU at ~2x bf16 peak."""
+    contraction runs on the int8 tensor cores at 2x the bf16 rate."""
     a = jnp.max(jnp.abs(v), axis=axis)
     s = a / 127.0
     inv = jnp.where(s > 0, 1.0 / s, 0.0)
@@ -152,16 +154,13 @@ def quartet_linear(x: jax.Array, w: jax.Array, h: jax.Array,
     picks the backward arithmetic (all three share the clip-mask STE
     and differentiate through the SAME dequantized forward operands):
 
-    - ``"int8"`` (default): TPU-native fast path — dY is quantized per
-      output row to 8-bit integers (tighter than MXFP8's 3-bit
-      mantissa) and ALL THREE GEMMs of the training step ride the int8
-      MXU at ~2x bf16 peak.  This is the speed-of-light QAT step on
-      TPU (1.14x over pseudoquant on v5e — ROUND2_NOTES).
+    - ``"int8"`` (default): dY is quantized per output row to 8-bit
+      integers (tighter than MXFP8's 3-bit mantissa) and ALL THREE
+      GEMMs of the training step are int8 contractions.
     - ``"mxfp8"``: reference-parity Quartet — dY is
       square-double-quantized to MXFP8 per 32x32 tile
-      (quartet_bwd_sm120.cu flow) and the GEMMs run at bf16 MXU rate
-      (the TPU has no fp8 MXU, so MXFP8 operands are pre-decoded to
-      exact bf16 — docs/NUMERICS.md).
+      (quartet_bwd_sm120.cu flow) and the GEMMs run at bf16 rate on
+      operands pre-decoded to exact bf16 (docs/NUMERICS.md).
     - ``"bf16"``: exact STE — dY enters the backward GEMMs unquantized
       in bf16.  More accurate than the reference's scheme, same speed
       class as ``mxfp8`` minus the square-double pass.
@@ -185,8 +184,8 @@ def _quartet_fwd_impl(x, w, h, method):
         mask_t = None
     wqt, wst = q.fusedQuantizeMx(w, h, method=method, layout="kmajor")
     alpha = jnp.full((1,), 1.0 if method == "quest" else 1.0 / 9.0, jnp.float32)
-    # forward contraction on the int8 MXU (~2x bf16 peak; bit-exact for
-    # quantizer-produced operands — ops/int8path.py)
+    # forward contraction in int8 (bit-exact for quantizer-produced
+    # operands — ops/int8path.py)
     xi, sx, _ = _i8.encode_int8_planes(xqt, xst)
     wi, sw, _ = _i8.encode_int8_planes(wqt, wst)
     y = _i8.matmul_mxf4_bf16_int8_kk(xi, wi, sx, sw, alpha)
@@ -245,7 +244,7 @@ def _quartet_bwd(method, grad_mode, carry, gy):
                                   (((0,), (1,)), ((), ())),
                                   preferred_element_type=jnp.float32)
     elif grad_mode == "int8":
-        # all-int8-MXU step: per-row 8-bit gradient quantization
+        # all-int8 step: per-row 8-bit gradient quantization
         # (int32-safe: |g| <= 127, |plane| <= 96 -> K < 176k)
         gyw = gy32 * (sw[None, :] * al)
         gq_d, sg_d = _int8_quantize_rows(gyw, axis=1)    # [M, N], [M]
@@ -289,7 +288,7 @@ class QuantizedLinear:
         y = lin(x)                                # prefill/decode
     This is the inference-path analogue of the reference's HF-integration
     layer swap (README.md:50-51).  Weights and activations travel in the
-    K-major TPU-native layout — no layout transforms on the hot path.
+    K-major layout.
     """
 
     def __init__(self, wqt, wst, h, n, k, method="quest"):
@@ -306,7 +305,6 @@ class QuantizedLinear:
     def __call__(self, x: jax.Array) -> jax.Array:
         shape = x.shape
         x2 = x.reshape(-1, self.k)
-        # composed kmajor quantize + GEMM wins at every M on v5e
         xqt, xst = q.fusedQuantizeMx(x2, self.h, method=self.method,
                                      layout="kmajor")
         y = q.matmul_mxf4_bf16_kmajor(xqt, self.wqt, xst, self.wst,

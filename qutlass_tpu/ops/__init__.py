@@ -1,3 +1,3 @@
-from . import dispatch, emulation
+from . import emulation, int8path
 
-__all__ = ["dispatch", "emulation"]
+__all__ = ["emulation", "int8path"]

@@ -1,9 +1,9 @@
-"""XLA emulation backend — portable jnp implementations of every op.
+"""XLA implementations of every op.
 
-Runs on any JAX platform.  Uses the shared codecs in
-``qutlass_tpu.formats.codecs`` (fp32 device semantics) so results match
-the Pallas kernels; serves as the fallback for shapes outside kernel
-constraints and as the CPU execution path for the test-suite.
+Runs on any JAX platform and is the production path of every op except
+the GPU's fused rotate+quantize+int8 encode (kernels/quantize_int8.py),
+whose twin lives here too.  Uses the shared codecs in
+``qutlass_tpu.formats.codecs`` (fp32 device semantics).
 
 Reference call-signature parity: qutlass/__init__.py:34-310.
 """
@@ -24,12 +24,17 @@ from ..utils import round_up
 # ---------------------------------------------------------------------------
 
 def _rotate(x: jax.Array, h: jax.Array, rot_size: int) -> jax.Array:
-    """Apply the per-``rot_size``-chunk rotation: view [..., G, r] @ h."""
+    """Apply the per-``rot_size``-chunk rotation: view [..., G, r] @ h.
+
+    ``HIGHEST`` keeps the f32 product in full f32 on a GPU (whose
+    default may be TF32): the quantizer's rounding points depend on it.
+    """
     xr = x.reshape(-1, rot_size).astype(jnp.float32)
     hh = h.reshape(rot_size, rot_size)
     out = jax.lax.dot_general(
         xr, hh.astype(x.dtype).astype(jnp.float32),
-        (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32)
+        (((1,), (0,)), ((), ())), precision=lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32)
     return out.reshape(x.shape)
 
 
@@ -68,6 +73,43 @@ def _padded_scales(bytes2d: jax.Array, rows: int, cols: int) -> jax.Array:
 # fused quantize
 # ---------------------------------------------------------------------------
 
+def _mx_quantize(a, h, rot_size: int, method: str):
+    """Rotate + MXFP4-quantize the rows of ``a`` [..., K].
+
+    Returns (codes int32 [rows, K], e8m0 bytes int32 [rows, K/32],
+    pre-rounding values q f32 [rows, K]).
+    """
+    k = a.shape[-1]
+    g = _rotate(a, h, rot_size).reshape(-1, k // 32, 32)
+    if method == "quest":
+        scale = C.mx_scale_quest(jnp.sum(g, axis=-1),
+                                 jnp.sum(g * g, axis=-1), 32.0)
+    else:
+        scale = C.mx_scale_absmax(jnp.max(jnp.abs(g), axis=-1))
+    scale_f, byte = C.pow2_floor_e8m0(scale)
+    q = g / scale_f[..., None]
+    if method != "quest":
+        q = q * 3.0
+    q = q.reshape(-1, k)
+    return C.e2m1_rtne_codes(q), byte, q
+
+
+def _nv_quantize(a, h, global_scale, rot_size: int, method: str):
+    """Rotate + NVFP4-quantize the rows of ``a`` [..., K].
+
+    Returns (codes int32 [rows, K], e4m3 bytes int32 [rows, K/16]).
+    """
+    k = a.shape[-1]
+    gsv = jnp.asarray(global_scale, jnp.float32).reshape(())
+    g = _rotate(a, h, rot_size).reshape(-1, k // 16, 16)
+    if method == "abs_max":
+        byte, mul = C.nv_absmax_scale_bytes(jnp.max(jnp.abs(g), axis=-1), gsv)
+    else:
+        byte, mul = C.nv_quest_scale_bytes(jnp.sum(g, axis=-1),
+                                           jnp.sum(g * g, axis=-1))
+    return C.e2m1_rtne_codes((g * mul[..., None]).reshape(-1, k)), byte
+
+
 @partial(jax.jit, static_argnames=("rot_size", "method", "return_mask",
                                    "layout"))
 def fused_quantize_mx(a: jax.Array, h: jax.Array, *, rot_size: int,
@@ -82,23 +124,8 @@ def fused_quantize_mx(a: jax.Array, h: jax.Array, *, rot_size: int,
     """
     k = a.shape[-1]
     rows = a.size // k
-    xh = _rotate(a, h, rot_size)                        # [..., K] f32
-    g = xh.reshape(-1, k // 32, 32)
-
-    if method == "quest":
-        s1 = jnp.sum(g, axis=-1)
-        s2 = jnp.sum(g * g, axis=-1)
-        scale = C.mx_scale_quest(s1, s2, 32.0)
-    else:
-        scale = C.mx_scale_absmax(jnp.max(jnp.abs(g), axis=-1))
-
-    scale_f, byte = C.pow2_floor_e8m0(scale)
-    q = g / scale_f[..., None]
-    if method != "quest":
-        q = q * 3.0
-    q = q.reshape(xh.shape)
-
-    codes = C.e2m1_rtne_codes(q)
+    codes, byte, q = _mx_quantize(a, h, rot_size, method)
+    codes, q = codes.reshape(a.shape), q.reshape(a.shape)
     packed = _pack_codes(codes)
     sbytes = byte.reshape(rows, k // 32).astype(jnp.uint8)
     if layout == "kmajor_codes":
@@ -132,20 +159,8 @@ def fused_quantize_nv(a: jax.Array, h: jax.Array, global_scale: jax.Array, *,
     """
     k = a.shape[-1]
     rows = a.size // k
-    gsv = jnp.asarray(global_scale, jnp.float32).reshape(())
-    xh = _rotate(a, h, rot_size)
-    g = xh.reshape(-1, k // 16, 16)
-
-    if method == "abs_max":
-        amax = jnp.max(jnp.abs(g), axis=-1)
-        byte, mul = C.nv_absmax_scale_bytes(amax, gsv)
-    else:
-        s1 = jnp.sum(g, axis=-1)
-        s2 = jnp.sum(g * g, axis=-1)
-        byte, mul = C.nv_quest_scale_bytes(s1, s2)
-
-    q = (g * mul[..., None]).reshape(xh.shape)
-    packed = _pack_codes(C.e2m1_rtne_codes(q))
+    codes, byte = _nv_quantize(a, h, global_scale, rot_size, method)
+    packed = _pack_codes(codes.reshape(a.shape))
     sbytes = byte.reshape(rows, k // 16).astype(jnp.uint8)
     if layout == "kmajor":
         return packed.reshape(rows, k // 2).T, sbytes.T
@@ -176,7 +191,7 @@ def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha, out_dtype=jnp.bfloat16):
     """W4A4 block-scaled GEMM: out = (dq(a) @ dq(b)^T) * alpha, bf16 out.
 
     a/b: packed u8 [M, K/2] / [N, K/2]; a_sf/b_sf: e8m0 bytes [M, K/32] /
-    [N, K/32] (row-major; the TPU-native layout — no swizzle).
+    [N, K/32] (row-major — no swizzle).
     Reference: matmul_mxf4_bf16_tn (gemm.cu:174-248).
     """
     av = _dequant_fp4(a, a_sf, 32)
@@ -206,7 +221,7 @@ def fused_linear_mxf4(x, wqt, wst, h, alpha, *, rot_size: int,
                       method: str = "quest"):
     """Composed emulation of the fused quantize+GEMM linear.
 
-    Like the Pallas kernel, the abs-max dequant constant (1/3 per
+    The abs-max dequant constant (1/3 per
     operand) is folded into alpha so the result is the true linear
     output for both methods.
     """
@@ -363,7 +378,7 @@ def backward_square_double_scaled(x: jax.Array):
 
     Returns ``decode(fp8) * 2^(scale-127)`` as bf16 [M, N] — the same
     quantization points, pre-decoded so the QAT backward matmuls run as
-    plain bf16 dots (TPU-native extension; no reference analogue).
+    plain bf16 dots (an extension; no reference analogue).
     Defined by composition so it is bit-consistent with the public op.
     """
     fp8, row_scales, _ = backward_bf16_square_double_mxfp8(x)
@@ -431,29 +446,29 @@ def mxfp4_transpose_mxfp8(x_fp4: jax.Array, scales: jax.Array):
     return fp8.astype(jnp.uint8).reshape(n, m), ebyte.astype(jnp.uint8)
 
 
+@partial(jax.jit, static_argnames=("rot_size", "method"))
 def fused_quantize_mx_int8(a: jax.Array, h: jax.Array, *, rot_size: int,
                            method: str = "quest"):
-    """XLA twin of the fused quantize+int8-encode kernel
-    (kernels/quantize.py): compose the kmajor-codes quantize with
-    ``int8path.encode_int8``.  Returns (a' int8 [K, rows], row_scale
-    f32 [rows], scale bytes u8 [K/32, rows]), bitwise equal to the
-    Pallas kernel."""
+    """XLA twin of the fused rotate+quantize+int8 kernel
+    (kernels/quantize_int8.py): the codes of :func:`fused_quantize_mx`
+    encoded by ``int8path.encode_int8``.  a: [rows, K].  Returns
+    (a' int8 [rows, K], row_scale f32 [rows], e8m0 bytes u8
+    [rows, K/32])."""
     from . import int8path as I8
-    cq, cs = fused_quantize_mx(a, h, rot_size=rot_size, method=method,
-                               layout="kmajor_codes")
-    ai, sa, _ = I8.encode_int8(cq, cs, kmajor=True)
-    return ai, sa, cs
+    codes, byte, _ = _mx_quantize(a, h, rot_size, method)
+    ai, sa, _ = I8.encode_int8(codes, byte)
+    return ai, sa, byte.astype(jnp.uint8)
 
 
+@partial(jax.jit, static_argnames=("rot_size", "method"))
 def fused_quantize_nv_int8(a: jax.Array, h: jax.Array,
                            global_scale: jax.Array, *, rot_size: int,
                            method: str = "abs_max"):
-    """XLA twin of the fused NV quantize+int8-encode kernel: compose
-    the kmajor quantize with ``int8path.encode_nv_int8``.  Returns
-    (a' int8 [K, rows], sigma f32 [rows], scale bytes u8 [K/16,
-    rows])."""
+    """XLA twin of the fused NV kernel: the codes of
+    :func:`fused_quantize_nv` encoded by ``int8path.encode_nv_int8_rows``.
+    a: [rows, K].  Returns (a' int8 [rows, K], sigma f32 [rows], e4m3
+    bytes u8 [rows, K/16])."""
     from . import int8path as I8
-    qt, st = fused_quantize_nv(a, h, global_scale, rot_size=rot_size,
-                               method=method, layout="kmajor")
-    ai, sg = I8.encode_nv_int8(qt, st)
-    return ai, sg, st
+    codes, byte = _nv_quantize(a, h, global_scale, rot_size, method)
+    ai, sg = I8.encode_nv_int8_rows(codes, byte)
+    return ai, sg, byte.astype(jnp.uint8)

@@ -1,9 +1,9 @@
-"""Int8-MXU evaluator for MXFP4 GEMMs — the large-M fast path.
+"""Int8 evaluator for MXFP4 GEMMs.
 
-The TPU has no fp4 tensor core; the bf16-decode Pallas GEMM therefore
-caps at bf16 peak (~197 TF/s on v5e), losing the reference's large-M
-headline.  The v5e int8 MXU runs at ~2x bf16 peak, and MXFP4 maps onto
-it exactly in the common case:
+The reference runs its W4A4 GEMMs on Blackwell's fp4 tensor cores.
+Hopper has none, but its int8 tensor cores run at twice the bf16 rate
+(1,979 against 989 TOP/s dense on an H100), and MXFP4 maps onto them
+exactly in the common case:
 
   e2m1 value  v = m * 2^(se_g - 1),  m in {0,..,+-12}, se_g the group's
   unbiased e8m0 exponent.  Per row take E = max_g se_g and the deficit
@@ -22,8 +22,7 @@ it exactly in the common case:
 Exactness contract (docs/NUMERICS.md): bit-identical to the decode GEMM
 whenever every row's group-exponent spread is <= 3 — which holds for
 the rotated, QuEST/abs-max-quantized tensors this library itself
-produces (measured: Gaussian rows spread 0-2 binades; see
-benchmarks/exp_int8_accuracy.py).  :func:`encode_int8` returns each
+produces (Gaussian rows spread 0-2 binades).  :func:`encode_int8` returns each
 tensor's max deficit so callers/loaders can verify statically; rows
 beyond the budget get absolutely-bounded rounding (|err| <= 2^(E-5)
 per element) instead of failure.
@@ -31,12 +30,8 @@ per element) instead of failure.
 Accumulator safety: |a'| <= 96 so |sum| <= K * 9216 — int32-safe to
 K = 233k, far past any model geometry.
 
-Measured (v5e, M=2048 N=K=5120): 351 TF/s vs 192 bf16 — the rank-1
-epilogue fuses into the XLA dot for free (benchmarks/exp_int8b.py).
-
 Reference counterpart: the fp4 tensor-core GEMMs (gemm.cu:174-248);
-this module is their speed-of-light mapping onto the TPU int8 MXU, not
-a translation.
+this module maps them onto int8 tensor cores, not a translation.
 """
 from __future__ import annotations
 
@@ -45,6 +40,19 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+def nv_row_scale(amax):
+    """NV int8 row scale sigma = rowmax|v| / 127 and its reciprocal (0
+    for an all-zero row).
+
+    One XLA computation shared by the XLA encode and the GPU kernel
+    (kernels/quantize_int8.py): many v / sigma land exactly on a .5 tie
+    (v = rowmax/2 gives 63.5), so the last bit of the reciprocal decides
+    the rounding, and both paths must take it from the same code.
+    """
+    sigma = amax * (1.0 / 127.0)
+    return sigma, jnp.where(sigma > 0, 1.0 / sigma, 0.0)
+
 
 def _codes_to_m2(codes):
     """e2m1 codes u8 -> signed integer 2*value, int32.
@@ -59,7 +67,7 @@ def _codes_to_m2(codes):
 def _pow2_f32(n):
     """EXACT fp32 2^n (bit-constructed — ``jnp.exp2`` is a 1-ulp-off
     approximation at many integer args, and the approximation differs
-    between XLA and Mosaic lowerings; see codecs.pow2_f32)."""
+    between lowerings; see codecs.pow2_f32)."""
     from ..formats import codecs as C
     return C.pow2_f32(n)
 
@@ -74,8 +82,7 @@ def _unpack(packed):
 def _unpack_rows(packed):
     """packed u8 [K/2, R] -> codes u8 [K, R], interleaving on dim 0.
 
-    Row-axis variant (no transposes — ``_unpack(x.T).T`` measured 600 us
-    on a [2048, 4096] packed operand from the double relayout)."""
+    Row-axis variant (no transposes)."""
     lo = packed & 0xF
     hi = packed >> 4
     k2, r = packed.shape
@@ -96,10 +103,8 @@ def encode_int8(codes_or_packed, scale_bytes, *, kmajor: bool = False):
     # over-deficit groups; the group multiplier broadcasts through a
     # [G, 32, R] view instead of a materialized repeat.  The pow2 is
     # BIT-CONSTRUCTED (exact) — jnp.exp2 approximations differ between
-    # dtypes and lowerings and broke the oneshot==two-pass contract at
-    # deficit > 3.  (An integer-only variant measured SLOWER — 975 vs
-    # 373 us at [25600, 2048]: the where/shift cascade beats the VPU's
-    # fused f32 multiply-round.)
+    # dtypes and lowerings and would break the fused==composed
+    # contract at deficit > 3.
     if kmajor:
         packed_k, rows = codes_or_packed.shape
         k = scale_bytes.shape[0] * 32
@@ -135,7 +140,8 @@ def matmul_mxf4_bf16_int8(a_i8, b_i8, sa, sb, alpha, out_dtype=jnp.bfloat16):
 
     a_i8 [M, K] int8, b_i8 [N, K] int8 (both from :func:`encode_int8`),
     sa [M] / sb [N] f32 row scales.  The int8 contraction runs on the
-    MXU at ~2x bf16 rate; XLA fuses the fp32 rank-1 epilogue.
+    int8 tensor cores at 2x the bf16 rate; XLA fuses the fp32 rank-1
+    epilogue.
     """
     o = jax.lax.dot_general(a_i8, b_i8, (((1,), (1,)), ((), ())),
                             preferred_element_type=jnp.int32)
@@ -185,9 +191,7 @@ def encode_int8_planes(packed, scale_bytes):
     """Packed K-major MXFP4 -> plane-major int8 operand (no interleave).
 
     The int8 contraction is order-invariant over K, so the nibble
-    planes need not be re-interleaved into natural K order (that
-    row-interleave relayout measured ~770 us on a [2048, 4096] packed
-    operand — 15x the whole encode's roofline).  Layout: row p holds
+    planes need not be re-interleaved into natural K order.  Layout: row p holds
     element 2p, row K/2 + p holds element 2p+1.  Dot two operands in
     THIS SAME layout and the int32 result is bit-identical to the
     natural-order dot (integer adds commute).
@@ -234,8 +238,8 @@ def encode_nv_int8_planes(packed, scale_bytes):
     (a' int8 [K, R] plane-major, row_scale f32 [R]).
 
     Reference counterpart: the NVFP4 tensor-core GEMM
-    (gemm.cu:250-326); this is its int8-MXU mapping (~2x bf16 peak on
-    v5e), with a documented rounding bound instead of fp4-exactness.
+    (gemm.cu:250-326); this is its int8 mapping, with a documented
+    rounding bound instead of fp4-exactness.
     """
     from ..formats import codecs as C
 
@@ -250,8 +254,7 @@ def encode_nv_int8_planes(packed, scale_bytes):
                 ).reshape(k2, rows)                          # exact f32
 
     v = jnp.concatenate([dq(packed & 0xF), dq(packed >> 4)], axis=0)
-    sigma = jnp.max(jnp.abs(v), axis=0) / 127.0              # [R]
-    inv = jnp.where(sigma > 0, 1.0 / sigma, 0.0)
+    sigma, inv = nv_row_scale(jnp.max(jnp.abs(v), axis=0))   # [R]
     a = jnp.round(v * inv[None, :]).astype(jnp.int8)
     return a, sigma
 
@@ -269,32 +272,37 @@ def prepare_weight_nv_int8(wqt, wst):
 
 
 @jax.jit
+def encode_nv_int8_rows(codes, scale_bytes):
+    """Row-major NVFP4 -> int8 operand + f32 row scale.
+
+    codes [R, K] (e2m1, any int dtype), scales u8/int32 (e4m3)
+    [R, K/16] -> (a' int8 [R, K], sigma f32 [R]).  The dequantized
+    value v = (m2/2) * s_g is exact in f32; a' = rtne(v / sigma) with
+    sigma = rowmax|v| / 127 (see :func:`encode_nv_int8_planes`).
+    """
+    from ..formats import codecs as C
+
+    rows, k = codes.shape
+    s = C.e4m3_decode_f32(scale_bytes.astype(jnp.int32))     # [R, K/16]
+    s = jnp.where(jnp.isnan(s), 0.0, s)                      # NaN byte -> dead group
+    m = _codes_to_m2(codes).astype(jnp.float32)              # exact
+    v = (m.reshape(rows, k // 16, 16) * (0.5 * s)[..., None]).reshape(rows, k)
+    sigma, inv = nv_row_scale(jnp.max(jnp.abs(v), axis=1))   # [R]
+    a = jnp.round(v * inv[:, None]).astype(jnp.int8)
+    return a, sigma
+
+
+@jax.jit
 def encode_nv_int8(packed, scale_bytes):
     """Packed K-major NVFP4 -> NATURAL-K-order int8 operand + f32 row
-    scale (same math as :func:`encode_nv_int8_planes`, natural element
-    order: row k = element k).
+    scale: :func:`encode_nv_int8_rows` in the K-major layout.
 
-    This is the layout the fused quantize+encode kernel
-    (kernels/quantize.py fused_quantize_nv_int8) emits, and the layout
-    NV int8 WEIGHTS are stored in — natural order shards contiguously
-    under tensor-parallel K-splits (models/serving_tp.py) with no
-    reorder.  Runtime activations should prefer the fused kernel; this
-    XLA twin is the emulation/fallback path and the one-time weight
-    prep.
+    This is the layout NV int8 WEIGHTS are stored in — natural order
+    shards contiguously under tensor-parallel K-splits
+    (models/serving_tp.py) with no reorder.
 
     packed u8 [K/2, R], scales u8 (e4m3) [K/16, R] ->
     (a' int8 [K, R], row_scale f32 [R]).
     """
-    from ..formats import codecs as C
-
-    codes = _unpack_rows(packed)                             # u8 [K, R]
-    k, rows = codes.shape
-    g = scale_bytes.shape[0]
-    s = C.e4m3_decode_f32(scale_bytes.astype(jnp.int32))     # [K/16, R]
-    s = jnp.where(jnp.isnan(s), 0.0, s)
-    m = _codes_to_m2(codes).astype(jnp.float32)              # exact
-    v = (m.reshape(g, 16, rows) * (0.5 * s)[:, None, :]).reshape(k, rows)
-    sigma = jnp.max(jnp.abs(v), axis=0) / 127.0              # [R]
-    inv = jnp.where(sigma > 0, 1.0 / sigma, 0.0)
-    a = jnp.round(v * inv[None, :]).astype(jnp.int8)
-    return a, sigma
+    a, sigma = encode_nv_int8_rows(_unpack_rows(packed).T, scale_bytes.T)
+    return a.T, sigma

@@ -1,9 +1,8 @@
 """Layout helpers.
 
-On TPU the block-scale layout is plain row-major ``[rows, K/gs]`` aligned
-to the (8,128)/(32,128) tile grid — the Blackwell 128x4 swizzle that the
-reference applies via ``to_blocked`` (qutlass/utils.py:160-193) is not
-needed.  ``to_blocked`` is kept for API parity and is a flatten (identity
+The block-scale layout here is plain row-major ``[rows, K/gs]`` — the
+Blackwell 128x4 swizzle that the reference applies via ``to_blocked``
+(qutlass/utils.py:160-193) is not needed.  ``to_blocked`` is kept for API parity and is a flatten (identity
 layout); ``to_blocked_swizzled`` produces the actual cuBLAS layout for
 interop/export.
 """
@@ -38,9 +37,9 @@ def get_padded_shape_nv(a) -> tuple[int, int]:
 
 
 def to_blocked(scales: jnp.ndarray, use_triton_kernel: bool = False) -> jnp.ndarray:
-    """TPU scale layout transform — identity modulo flattening.
+    """Scale layout transform — identity modulo flattening.
 
-    The Pallas GEMMs consume row-major scales directly, so this is a
+    The GEMMs consume row-major scales directly, so this is a
     flatten of the (already padded) scale matrix.  The signature matches
     reference utils.py:160 (``use_triton_kernel`` is accepted and
     ignored).
@@ -127,3 +126,14 @@ def largest_divisor_multiple(n: int, unit: int, cap: int) -> int:
         if m % d == 0 and d * unit <= cap:
             best = d * unit
     return best
+
+
+def block_diag_128(h: jnp.ndarray) -> jnp.ndarray:
+    """Lift an [r, r] rotation (r dividing 128) to the 128x128
+    block-diagonal bf16 operand kron(I, h): one full-width tensor-core
+    product rotates 128 columns at once."""
+    reps = 128 // h.shape[-1]
+    hb = h.astype(jnp.bfloat16)
+    if reps == 1:
+        return hb
+    return jnp.kron(jnp.eye(reps, dtype=jnp.bfloat16), hb)

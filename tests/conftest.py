@@ -1,10 +1,12 @@
 """Test configuration.
 
-Tests default to the CPU backend with an 8-device virtual mesh so the
-suite is hermetic (the driver validates multi-chip sharding this way).
-Set QUTLASS_TPU_TEST_PLATFORM=tpu to run the same suite on real TPU
-hardware (kernel-vs-golden checks then exercise the compiled Pallas
-path).
+Tests run on the CPU (``JAX_PLATFORMS=cpu``) with an 8-device virtual
+mesh, so the suite is hermetic and the multi-device sharding tests have
+devices to shard over.  The persistent compile cache stays off here:
+CPU executables in it are specific to the host's CPU features.
+
+Tests that need the card carry the ``gpu`` marker and skip elsewhere;
+``python chip_smoke.py`` runs them on a GPU as one of its phases.
 """
 import os
 
@@ -12,60 +14,9 @@ os.environ.setdefault("XLA_FLAGS",
                       os.environ.get("XLA_FLAGS", "")
                       + " --xla_force_host_platform_device_count=8")
 
-_PLATFORM = os.environ.get("QUTLASS_TPU_TEST_PLATFORM", "cpu")
-
 import jax  # noqa: E402
-
-if _PLATFORM == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
-# Persistent compile cache: OPT-IN on CPU (QUTLASS_TPU_TEST_CACHE=1).
-# The CPU cache proved UNSOUND in this jaxlib/host combo — three
-# distinct crash signatures across full-suite runs with it enabled:
-# (1) SIGSEGV serializing multi-device executables (put_executable_
-# and_time), (2) the same after guarding writes to single-device
-# programs only, now inside backend_compile_and_load on a later big
-# shard_map compile, (3) reproduced with a freshly-purged cache dir —
-# while every cached LOAD logs an AOT machine-feature mismatch
-# ("could lead to execution errors such as SIGILL").  Standalone
-# module runs with the cache are fine; the full suite is not.  For
-# fast iteration use `python -m pytest tests -n 8` (pytest-xdist)
-# instead — compiles parallelize across workers.
-_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))),
-    ".jax_cache" if _PLATFORM != "cpu" else ".jax_cache_cpu")
-if _PLATFORM != "cpu" or os.environ.get("QUTLASS_TPU_TEST_CACHE") == "1":
-    jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
-
-# Even opt-in, never serialize MULTI-DEVICE CPU executables (hard
-# SIGSEGV in the xla serialize call, observed twice on test_serving_tp's
-# big shard_map program).  The patch touches a private jax symbol, so it
-# is applied only when the cache is actually enabled and tolerates the
-# symbol moving in a jaxlib upgrade (the cache is best-effort anyway).
-if _PLATFORM != "cpu" or os.environ.get("QUTLASS_TPU_TEST_CACHE") == "1":
-    try:
-        from jax._src import compilation_cache as _cc
-
-        _orig_put_executable = _cc.put_executable_and_time
-
-        def _put_single_device_only(cache_key, module_name, executable,
-                                    backend, compile_time):
-            try:
-                ndev = len(executable.local_devices())
-            except Exception:
-                ndev = 2  # unknown shape: be safe, skip the write
-            if ndev > 1:
-                return
-            return _orig_put_executable(cache_key, module_name, executable,
-                                        backend, compile_time)
-
-        _cc.put_executable_and_time = _put_single_device_only
-    except (ImportError, AttributeError):  # jax internals moved
-        pass
 
 
 # Two-tier suite: the default run skips tests marked ``slow`` (heavy
@@ -80,6 +31,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy test, skipped by default; QUTLASS_TPU_TEST_FULL=1 "
         "(or -m slow) runs it")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU (compiled kernels); skipped elsewhere, "
+        "run on the card by chip_smoke.py")
 
 
 def pytest_collection_modifyitems(config, items):
@@ -97,6 +52,15 @@ def _seed_each_test():
     np.random.seed(0)
 
 
+@pytest.fixture(autouse=True)
+def _gpu_only(request):
+    """Skip ``gpu``-marked tests unless JAX's backend is a GPU (decided
+    when the test runs, never at import or collection)."""
+    if (request.node.get_closest_marker("gpu")
+            and jax.default_backend() != "gpu"):
+        pytest.skip("needs an NVIDIA GPU (run: python chip_smoke.py)")
+
+
 @pytest.fixture
-def on_tpu():
-    return jax.default_backend() not in ("cpu", "gpu")
+def on_gpu():
+    return jax.default_backend() == "gpu"

@@ -1,60 +1,34 @@
-"""Model-level numerics gate wired into the suite (VERDICT r3 item 4).
+"""Model-level numerics gate wired into the suite.
 
-Runs benchmarks/agreement_gate.py in a SUBPROCESS — QUTLASS_TPU_PIN_NORMS
-is read at trace time, so the flag must be set before the child process
-traces anything (setting it in-process would race this suite's own jit
-caches).  Platform follows QUTLASS_TPU_TEST_PLATFORM like the rest of
-the suite: on CPU the evaluators are bitwise even unpinned; on TPU the
-pinned run is the bit-identity contract documented in docs/NUMERICS.md.
+Runs benchmarks/agreement_gate.py's gate in this process (one JAX
+process per device).  On CPU the int8 and fp4 evaluators are bitwise
+equal even unpinned; the pinned run is the bit-identity contract of
+docs/NUMERICS.md.
 """
-import json
 import os
-import subprocess
 import sys
 
 import pytest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_GATE = os.path.join(REPO, "benchmarks", "agreement_gate.py")
-_TPU = os.environ.get("QUTLASS_TPU_TEST_PLATFORM", "cpu") == "tpu"
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "benchmarks"))
 
-
-def _run_gate(pin: int, prompts: int = 8, steps: int = 8):
-    env = dict(os.environ, PYTHONPATH="")
-    args = [sys.executable, _GATE, "--prompts", str(prompts),
-            "--steps", str(steps), "--pin", str(pin)]
-    if not _TPU:
-        args += ["--device", "cpu"]
-        env["JAX_PLATFORMS"] = "cpu"
-    proc = subprocess.run(args, capture_output=True, text=True,
-                          timeout=1800 if _TPU else 600, env=env)
-    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
-    assert lines, (proc.stdout[-2000:], proc.stderr[-2000:])
-    return json.loads(lines[-1])
+from agreement_gate import run_gate  # noqa: E402
 
 
 @pytest.mark.slow
 def test_agreement_gate_pinned():
-    """Pinned evaluators agree: bitwise (prefix 1.0) on CPU and on TPU
-    (the QUTLASS_TPU_PIN_NORMS=1 contract, docs/NUMERICS.md)."""
-    out = _run_gate(pin=1)
+    """Pinned evaluators agree bitwise (prefix 1.0) on 8 prompts x 8
+    steps."""
+    out = run_gate(prompts=8, steps=8, pin=1)
     assert out["pass"], out
     assert out["prefix_agreement"] == 1.0, out
 
 
 def test_agreement_gate_fast():
-    """Small pinned gate in the DEFAULT tier (VERDICT r4 item 7): a
-    model-level int8-vs-fp4 numerics regression must surface in the
-    210s tier, not only under QUTLASS_TPU_TEST_FULL=1.  4 prompts x 4
-    steps on CPU (~25s; CPU is the bitwise contract regardless of the
-    suite's platform setting, so this also stays cheap on TPU runs)."""
-    env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu")
-    args = [sys.executable, _GATE, "--prompts", "4", "--steps", "4",
-            "--pin", "1", "--device", "cpu"]
-    proc = subprocess.run(args, capture_output=True, text=True,
-                          timeout=300, env=env)
-    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
-    assert lines, (proc.stdout[-2000:], proc.stderr[-2000:])
-    out = json.loads(lines[-1])
+    """Small pinned gate in the default tier: a model-level int8-vs-fp4
+    numerics regression surfaces in the fast run (4 prompts x 4
+    steps)."""
+    out = run_gate(prompts=4, steps=4, pin=1)
     assert out["pass"], out
     assert out["prefix_agreement"] == 1.0, out

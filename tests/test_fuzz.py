@@ -8,9 +8,9 @@ Three oracles, mirroring the reference tests' self-checking design
     matmul;
   * layout self-consistency — kmajor / kmajor_codes / rowmajor of the
     same input must agree bitwise;
-  * Pallas-interpret vs emulation — bitwise, on a random subsample
-    (interpret mode is slow; the dense grid lives in
-    test_kernels_interpret.py).
+  * the fused int8 quantize kernel in interpret mode vs its XLA twin —
+    bitwise, on a random subsample (interpret mode is slow; the dense
+    grid lives in test_quantize_int8.py).
 
 Shapes draw from a small pool so jit caching keeps the suite fast; data
 is fresh per draw.  Every case is seeded — failures reproduce.
@@ -141,45 +141,9 @@ def test_fuzz_backward_t_vs_golden(seed):
     assert (dq != ref["dq"]).mean() <= 1e-4
 
 
-@pytest.mark.parametrize("seed", range(6))
-def test_fuzz_interpret_matches_emulation(seed):
-    """Random draws through the actual Pallas kernel bodies (interpret
-    mode) — bitwise equal to emulation."""
-    if jax.default_backend() != "cpu":
-        pytest.skip("interpret mode on CPU only")
-    from jax.experimental.pallas import tpu as pltpu
-    from qutlass_tpu.kernels import gemm as KG
-    from qutlass_tpu.kernels import quantize as KQ
-
-    rng = np.random.default_rng(6000 + seed)
-    m = int(rng.choice([16, 64, 128]))
-    n = int(rng.choice([16, 128]))
-    k = int(rng.choice([128, 256]))
-    rot = int(rng.choice([r for r in ROTS if k % r == 0]))
-    method = str(rng.choice(["quest", "abs_max"]))
-    a, b = randn_bf16(rng, m, k), randn_bf16(rng, n, k)
-    h = bf16_hadamard(rot)
-    one = jnp.ones((1,), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        aq, asf = KQ.fused_quantize_mx(a, h, rot_size=rot, method=method,
-                                       layout="kmajor")
-        bq, bsf = KQ.fused_quantize_mx(b, h, rot_size=rot, method=method,
-                                       layout="kmajor")
-        out_p = KG.matmul_mxf4_bf16_kmajor(aq, bq, asf, bsf, one)
-    eaq, easf = E.fused_quantize_mx(a, h, rot_size=rot, method=method,
-                                    layout="kmajor")
-    ebq, ebsf = E.fused_quantize_mx(b, h, rot_size=rot, method=method,
-                                    layout="kmajor")
-    np.testing.assert_array_equal(np.asarray(aq), np.asarray(eaq))
-    np.testing.assert_array_equal(np.asarray(asf), np.asarray(easf))
-    out_e = E.matmul_mxf4_bf16_kmajor(eaq, ebq, easf, ebsf, one)
-    np.testing.assert_array_equal(np.asarray(out_p, np.float32),
-                                  np.asarray(out_e, np.float32))
-
-
 @pytest.mark.parametrize("seed", range(10))
 def test_fuzz_int8_evaluator(seed):
-    """Random pipeline draws through the int8-MXU evaluator: must be
+    """Random pipeline draws through the int8 evaluator: must be
     bit-identical to the emulation decode GEMM (deficit budget holds by
     construction for quantizer-produced tensors)."""
     from qutlass_tpu.ops import int8path as I8
@@ -208,14 +172,11 @@ def test_fuzz_int8_evaluator(seed):
 
 @pytest.mark.parametrize("seed", range(10))
 def test_fuzz_fused_int8_quantize(seed):
-    """Random draws through the fused quantize+int8-encode kernels
-    (interpret mode): bitwise equal to the XLA emulation twins for
-    operand, row scale, and scale bytes, across row counts that force
-    partial blocks and Ks that force multiple K grid steps."""
-    if jax.default_backend() != "cpu":
-        pytest.skip("interpret mode on CPU only")
-    from jax.experimental.pallas import tpu as pltpu
-    from qutlass_tpu.kernels import quantize as KQ
+    """Random draws through the fused quantize+int8-encode kernel
+    (interpret mode): bitwise equal to the XLA twins for operand, row
+    scale, and scale bytes, across row counts that force partial blocks
+    and Ks that force several K chunks."""
+    from qutlass_tpu.kernels import quantize_int8 as KQ
 
     rng = np.random.default_rng(8000 + seed)
     rows = int(rng.choice([8, 33, 64, 129, 256]))
@@ -224,9 +185,8 @@ def test_fuzz_fused_int8_quantize(seed):
     method = str(rng.choice(["quest", "abs_max"]))
     x = randn_bf16(rng, rows, k)
     h = bf16_hadamard(rot)
-    with pltpu.force_tpu_interpret_mode():
-        pa, psa, psb = KQ.fused_quantize_mx_int8(x, h, rot_size=rot,
-                                                 method=method)
+    pa, psa, psb = KQ.quantize_int8(x, h, fmt="mx", method=method,
+                                    interpret=True)
     ea, esa, esb = E.fused_quantize_mx_int8(x, h, rot_size=rot,
                                             method=method)
     np.testing.assert_array_equal(np.asarray(pa), np.asarray(ea))
@@ -236,10 +196,8 @@ def test_fuzz_fused_int8_quantize(seed):
     if rot >= 16 and k % 16 == 0:
         h16 = bf16_hadamard(16)
         gs = jnp.asarray(float(rng.uniform(0.5, 4.0)), jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            na, nsg, nsb = KQ.fused_quantize_nv_int8(x, h16, gs,
-                                                     rot_size=16,
-                                                     method=method)
+        na, nsg, nsb = KQ.quantize_int8(x, h16, gs, fmt="nv", method=method,
+                                        interpret=True)
         ma, msg, msb = E.fused_quantize_nv_int8(x, h16, gs, rot_size=16,
                                                 method=method)
         np.testing.assert_array_equal(np.asarray(na), np.asarray(ma))

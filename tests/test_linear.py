@@ -97,7 +97,8 @@ def test_quartet_linear_jit_grad():
 
 @pytest.mark.parametrize("grad_mode", ["bf16", "int8"])
 def test_quartet_linear_grad_modes(grad_mode):
-    """TPU-native backward modes align with the reference-flow grads."""
+    """The bf16 and int8 backward modes align with the reference-flow
+    grads."""
     rng = np.random.default_rng(1)
     m, n, k = 128, 256, 512
     x = randn_bf16(rng, m, k, scale=1.0)

@@ -3,7 +3,7 @@
 The reference loads square rotation matrices at runtime
 (README.md:59-73: Hadamard, DCT, identity; sizes 16/32/64/128) and its
 tests build Hadamard via scipy (tests/mxfp4_test.py:39-42).  These
-utilities are the TPU-side equivalents; any orthonormal square matrix
+utilities are the in-repo equivalents; any orthonormal square matrix
 of a supported size works with the fused quantizers.
 """
 import numpy as np
